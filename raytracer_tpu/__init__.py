@@ -1,13 +1,13 @@
-"""raytracer_tpu — a TPU-native differentiable Monte Carlo path tracing framework.
+"""raytracer_tpu — a differentiable Monte Carlo path tracing framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of the reference CPU
+A ground-up JAX/XLA re-design of the capabilities of the reference CPU
 renderer (Witek902/Raytracer): wavefront integrators (PT, PT+MIS, light
 tracing, VCM, debug AOVs), flattened SoA scene representation with two-level
 BVH, branchless BSDF/light dispatch, counter-based deterministic sampling,
 sharded multi-chip rendering via `jax.sharding`, and a differentiable forward
 path giving pixel→(material/light/camera) gradients.
 
-Layer map (mirrors SURVEY.md §1, re-expressed TPU-first):
+Layer map (mirrors SURVEY.md §1, re-expressed for wavefront accelerators):
 
     render/      frame loop, film accumulation, postprocess, adaptive blocks
     integrators/ path_tracer (naive + MIS), light_tracer, vcm, debug AOVs

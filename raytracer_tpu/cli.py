@@ -18,7 +18,7 @@ import time
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="raytracer_tpu",
-        description="TPU-native differentiable Monte Carlo path tracer",
+        description="Differentiable Monte Carlo path tracer in JAX",
     )
     p.add_argument("--scene", "-s", help="JSON scene file (reference schema); omit for built-in Cornell box")
     p.add_argument("--data", "-d", default=None, help="asset root for textures/meshes (default: scene dir)")
@@ -44,6 +44,9 @@ def main(argv=None) -> int:
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from .integrators.path_tracer import RenderParams
     from .math.transform import RigidTransform
@@ -124,10 +127,9 @@ def main(argv=None) -> int:
         vp.render(args.passes)
     dt = time.perf_counter() - t0
 
-    img = vp.image()
-    from PIL import Image
+    from .io.bitmap import write_image
 
-    Image.fromarray(img).save(args.output)
+    write_image(args.output, vp.image())
     if args.hdr_output:
         from .io.exr import write_exr
 
@@ -138,13 +140,14 @@ def main(argv=None) -> int:
         seconds=round(dt, 3),
         mrays_per_sec=round((stats["total_rays"] + stats["total_shadow_rays"]) / dt / 1e6, 3),
         output=args.output,
+        platform=jax.devices()[0].platform,
     )
     if args.stats_json:
         print(json.dumps(stats))
     else:
         print(
             f"{stats['passes_finished']} passes in {stats['seconds']}s "
-            f"({stats['mrays_per_sec']} Mray/s) -> {args.output}"
+            f"({stats['mrays_per_sec']} Mray/s on {stats['platform']}) -> {args.output}"
         )
     return 0
 

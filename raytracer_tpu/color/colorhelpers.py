@@ -1,6 +1,6 @@
 """Color space conversions and tonemapping, vectorized.
 
-TPU re-expression of ``Core/Color/ColorHelpers.h``: sRGB <-> linear, the four
+Re-expression of ``Core/Color/ColorHelpers.h``: sRGB <-> linear, the four
 tonemappers (Clamped / Reinhard / Hejl-Burgess-Dawson / ACES) and HSV -> RGB.
 Operates on plain arrays (any shape) or per-channel SoA.
 """

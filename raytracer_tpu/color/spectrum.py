@@ -1,6 +1,6 @@
 """Spectral rendering support: wavelength sampling + CIE -> RGB resolve.
 
-TPU re-expression of the reference's spectral mode (`RT_ENABLE_SPECTRAL_
+Re-expression of the reference's spectral mode (`RT_ENABLE_SPECTRAL_
 RENDERING`, `Core/Color/Wavelength.{h,cpp}`, `Core/Color/RayColor.h:148-160`):
 the reference carries 8 hero-rotated wavelengths per path and collapses to a
 single wavelength at a dispersive event (`RoughDielectricBSDF.cpp:29-44`).

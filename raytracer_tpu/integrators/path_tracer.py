@@ -1,6 +1,6 @@
 """Wavefront path tracer (naive + MIS), differentiable, jit-compiled.
 
-TPU re-expression of the reference integrators:
+Re-expression of the reference integrators:
 - naive BSDF-sampling PT (`Core/Rendering/PathTracer.cpp:74-172`)
 - PT with next-event estimation and balance-heuristic MIS
   (`Core/Rendering/PathTracerMIS.cpp:254-415`)
@@ -494,11 +494,7 @@ def trace_radiance(
             md = catv(new_dir, shadow_rays.dir)
             mcap = cat(next_cap, shadow_cap)
             mtime = cat(time, time) if time is not None else None
-            nn0 = new_origin.x.shape[0]
-            ah_mask = jnp.concatenate(
-                [jnp.zeros(nn0, bool), jnp.ones(shadow_cap.shape[0], bool)]
-            )
-            mhits = scene_traverse(scene, mo, md, t_max=mcap, time=mtime, any_hit=ah_mask)
+            mhits = scene_traverse(scene, mo, md, t_max=mcap, time=mtime)
             nn = new_origin.x.shape[0]
             hits_next = jax.tree.map(
                 lambda a: a[:nn] if a is not None else None, mhits,

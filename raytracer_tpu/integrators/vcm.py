@@ -1,7 +1,7 @@
 """Vertex Connection and Merging — bidirectional path tracing + progressive
 photon merging, SmallVCM-style.
 
-TPU re-expression of `Core/Rendering/VertexConnectionAndMerging.cpp` (970
+Re-expression of `Core/Rendering/VertexConnectionAndMerging.cpp` (970
 LoC): every pass traces one light sub-path and one camera sub-path per pixel.
 Light vertices are STORED (stacked per-depth arrays — the wavefront analogue
 of the reference's per-thread `lightVertices` array, `VCM.cpp:32-45`), used
@@ -22,7 +22,7 @@ Multi-chip (SURVEY §2.9 P4): ``render_pass_vcm`` takes ``rows``/``row0``/
 ``axis_name`` — under `shard_map` each device traces its own pixel band's
 light AND camera paths (vertex connections pair same-pixel paths, so they
 stay device-local, like the reference pairing each pixel's two sub-paths),
-`all_gather`s the photon fields over ICI before the grid build (the analogue
+`all_gather`s the photon fields across devices before the grid build (the analogue
 of concatenating per-thread photon lists + the single-threaded grid build,
 `VertexConnectionAndMerging.cpp:140-170`), and `psum`s the light-tracing
 splat frame (splats land on arbitrary pixels).  Driven by
@@ -337,7 +337,7 @@ def render_pass_vcm(
         film = splat_to_film(film, splats, w, h)
     else:
         # splats land on arbitrary pixels: accumulate a full frame, reduce
-        # over ICI, keep this device's band (per-thread splat merge analogue)
+        # across devices, keep this device's band (per-thread splat merge analogue)
         from ..render.film import make_film
 
         tmp = splat_to_film(make_film(w, h), splats, w, h)
@@ -366,7 +366,7 @@ def render_pass_vcm(
         d_vcm=flat(vertices.d_vcm),
     )
     if axis_name is not None:
-        # SURVEY P4: gather every device's photons over ICI before the grid
+        # SURVEY P4: gather every device's photons across devices before the grid
         # build (`VCM.cpp:140-170`'s cross-thread concat + global build)
         photons = jax.tree.map(
             lambda x: jax.lax.all_gather(x, axis_name, tiled=True), photons

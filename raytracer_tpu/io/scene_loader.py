@@ -40,28 +40,42 @@ class SceneLoadError(RuntimeError):
 
 
 def _load_bitmap(data_path: str, rel: str) -> np.ndarray:
-    """Load a bitmap (BMP/PNG/JPG via PIL, EXR via our codec) as linear f32."""
+    """Load a bitmap as linear f32: BMP and EXR through the repo's own
+    codecs; PNG/JPG through Pillow when it is installed."""
     path = rel if os.path.isabs(rel) else os.path.join(data_path, rel)
     if not os.path.exists(path):
         raise SceneLoadError(f"texture not found: {path}")
-    if path.lower().endswith(".exr"):
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".exr":
         from .exr import read_exr
 
         return read_exr(path)
-    from PIL import Image
-
     from ..color.colorhelpers import srgb_to_linear
     import jax.numpy as jnp
 
-    img = np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
-    if path.lower().endswith(".bmp"):
+    if ext == ".bmp":
+        from .bitmap import read_bmp
+
+        try:
+            img = read_bmp(path)[..., :3]
+        except ValueError as e:
+            raise SceneLoadError(str(e)) from e
         # the reference freads the BMP pixel array raw (`BitmapBMP.cpp:127`)
         # without undoing the format's bottom-up row order, so its v axis is
-        # flipped relative to the authored image; PIL decodes top-down —
+        # flipped relative to the authored image; read_bmp returns top-down —
         # flip to match the reference's sampling (verified: checker phase on
         # bitmap_texture_test inverts without this, corr -0.89 -> +parity)
         img = img[::-1]
-    return np.asarray(srgb_to_linear(jnp.asarray(img)))
+    else:
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise SceneLoadError(
+                f"texture {path}: reading {ext or 'this'} files needs Pillow, "
+                "which is not installed (BMP and EXR textures need nothing)"
+            ) from e
+        img = np.asarray(Image.open(path).convert("RGB"))
+    return np.asarray(srgb_to_linear(jnp.asarray(img.astype(np.float32) / 255.0)))
 
 
 def _parse_textures(

@@ -1,6 +1,6 @@
 """Piecewise-constant probability distributions (1-D and 2-D).
 
-TPU re-expression of `Core/Math/Distribution.{h,cpp}`: the reference builds a
+Re-expression of `Core/Math/Distribution.{h,cpp}`: the reference builds a
 CDF from arbitrary non-negative values (`Distribution::Initialize`,
 `Distribution.cpp:27`) and samples it with a binary search
 (`Distribution::SampleDiscrete`, `Distribution.cpp:85`); `BitmapTexture::
@@ -122,8 +122,8 @@ def sample_2d(dist: Distribution2D, u1, u2):
 
     The per-row column search is a hand-unrolled binary search over the
     (H, W+1) conditional CDF with one N-point 2-D gather per step — it never
-    materializes per-lane rows (gathering (N, W+1) rows costs ~GBs of HBM
-    traffic for a 2k env map and measured ~1000x slower)."""
+    materializes per-lane rows (gathering (N, W+1) rows would move GBs of
+    device memory for a 2k env map)."""
     h, w = dist.density.shape
     # row from the marginal
     iy = jnp.clip(jnp.searchsorted(dist.marginal_cdf, u2, side="right") - 1, 0, h - 1)
@@ -155,7 +155,7 @@ def jax_searchsorted_rows(cdf_rows: jnp.ndarray, u: jnp.ndarray) -> jnp.ndarray:
     Hand-unrolled vectorized binary search — ceil(log2 K) whole-wavefront
     gather steps, the analogue of the reference's scalar binary search
     (`Distribution.cpp:85-113`).  (A vmapped ``jnp.searchsorted`` lowers to a
-    per-lane while_loop that measures ~1000x slower on TPU.)"""
+    per-lane while_loop instead.)"""
     k = cdf_rows.shape[-1]
     lo = jnp.zeros(u.shape, jnp.int32)
     hi = jnp.full(u.shape, k, jnp.int32)

@@ -3,9 +3,9 @@
 The reference compresses photons and buffers with packed encodings:
 octahedron-mapped unit vectors in 4 bytes (`PackedUnitVector3`), shared/
 YCoCg HDR color in 8 bytes (`PackedColorRgbHdr`), R11G11B10 floats, 5-6-5
-color and fp16 (`Half.h`).  On TPU these matter for HBM footprint of photon
-maps and films; all codecs below are elementwise jnp (VPU) ops over whole
-arrays.
+color and fp16 (`Half.h`).  On an accelerator these matter for the device
+memory footprint of photon maps and films; all codecs below are elementwise
+jnp ops over whole arrays.
 
 Error budgets are validated in tests/test_packed.py the same way the
 reference's `MathPackedTest.cpp` sweeps values and asserts max error.

@@ -1,6 +1,6 @@
 """Vectorized sampling helpers and pdfs.
 
-TPU re-expression of ``Core/Math/SamplingHelpers.{h,cpp}`` and the pdf helpers
+Re-expression of ``Core/Math/SamplingHelpers.{h,cpp}`` and the pdf helpers
 in ``Core/Math/Geometry.h:17-43``.  All functions map arrays of uniform [0,1)
 samples to points/directions, fully branchless.
 """

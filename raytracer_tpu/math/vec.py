@@ -1,10 +1,10 @@
-"""Structure-of-arrays 3-vector math for TPU.
+"""Structure-of-arrays 3-vector math for wavefront kernels.
 
 The reference renderer carries rays in AVX registers, one float per SIMD lane
-(``Core/Math/Vector8.h``, ``Core/Math/Vector3x8.h``).  The TPU-native analogue
+(``Core/Math/Vector8.h``, ``Core/Math/Vector3x8.h``).  The wavefront analogue
 is a structure-of-arrays vector: three independent ``(N, ...)`` arrays, one per
-component, so every arithmetic op is a full-width VPU op over the ray batch and
-nothing is wasted padding a trailing dim of 3 out to 128 lanes.
+component, so every arithmetic op is a full-width elementwise op over the ray
+batch and no layout pads a trailing dim of 3.
 
 All functions are shape-polymorphic: components may be any broadcast-compatible
 shape (scalars included), and everything works under ``jit``/``vmap``/``grad``.
@@ -22,7 +22,7 @@ Scalar = Union[float, jnp.ndarray]
 class Vec3(NamedTuple):
     """SoA 3-vector: three same-shaped arrays (or scalars).
 
-    TPU-native replacement for the reference's ``Vector4``/``Vector3x8``
+    Replacement for the reference's ``Vector4``/``Vector3x8``
     (`Core/Math/Vector4.h`, `Core/Math/Vector3x8.h`).
     """
 
@@ -119,7 +119,7 @@ def normalize(a: Vec3, eps: float = 0.0) -> Vec3:
 
 
 def rsqrt_normalize(a: Vec3) -> Vec3:
-    """Normalize via rsqrt (TPU-fast; mirrors FastNormalize3 in the reference)."""
+    """Normalize via rsqrt (mirrors FastNormalize3 in the reference)."""
     import jax
 
     inv = jax.lax.rsqrt(length_sq(a))

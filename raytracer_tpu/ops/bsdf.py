@@ -2,7 +2,7 @@
 
 The reference dispatches through BSDF vtables (`Core/Material/BSDF/*.cpp`);
 here every lobe family is evaluated masked over the whole ray wavefront and
-selected by the per-ray material's integer kind — the TPU-native analogue.
+selected by the per-ray material's integer kind — the branchless wavefront analogue.
 
 Conventions (local shading space, +Z = shading normal):
 - ``wo``: direction toward the viewer (away from surface) — reference's

@@ -1,8 +1,8 @@
 """Dense two-phase ray traversal over triangle clusters (see scene/clusters.py).
 
 Phase 1 (dense, zero gathers): slab-test each ray against every cluster AABB
-— an (n, C) elementwise computation chunked over rays and scanned (scan body
-is gather-free, so XLA-TPU handles it well) — then `top_k` the nearest
+— an (n, C) elementwise computation chunked over rays and scanned (the scan
+body is gather-free) — then `top_k` the nearest
 ``kmax`` overlapped clusters per ray.
 
 Phase 2 (few big gathers): a STATIC python loop over the kmax candidates;

@@ -1,8 +1,8 @@
-"""Uniform hash grid for photon range queries — TPU re-expression of
+"""Uniform hash grid for photon range queries — re-expression of
 `Core/Utils/HashGrid.h:17-150`.
 
 The reference counting-sorts photon indices into hash cells and walks the
-3x3x3 neighborhood per query.  The TPU-native build is a device-side sort:
+3x3x3 neighborhood per query.  Here the build is a device-side sort:
 
 - cell id   = hash of floor(position / cellSize)  (arithmetic hash, masked
   to a power-of-two table like `HashGrid::GetCellHash`)

@@ -1,6 +1,6 @@
 """Wavefront ray / analytic-primitive intersection.
 
-TPU re-expression of the reference's shape intersectors
+Re-expression of the reference's shape intersectors
 (`Core/Shapes/SphereShape.cpp:29-46`, `BoxShape` slab test,
 `Core/Shapes/RectShape.cpp:32-49`) and of `Scene::Traverse_Object`
 (`Core/Scene/Scene.cpp:128-145`): rays are transformed into each primitive's
@@ -40,8 +40,8 @@ class Hits(NamedTuple):
     # instance index for hits on instanced meshes (scene.instances);
     # -1 = baked geometry / analytic prim / miss
     inst_id: jnp.ndarray = None
-    # kernel-emitted interpolated shading frame for triangle hits (wave2
-    # closest mode): 6-tuple (nx, ny, nz, tex_u, tex_v, material_id as f32)
+    # traversal-emitted interpolated shading frame for triangle hits (wave
+    # closest mode, `interp_tri_attr`): 6-tuple (nx, ny, nz, tex_u, tex_v, material_id as f32)
     # in the MESH's space (object space for instanced hits) — consumed by
     # `scene_hit_frame` instead of per-ray attribute gathers
     attr: tuple = None

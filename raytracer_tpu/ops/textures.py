@@ -1,6 +1,6 @@
 """Texture evaluation — vectorized bitmap gathers + inline procedural kinds.
 
-TPU re-expression of the reference texture stack:
+Re-expression of the reference texture stack:
 - `BitmapTexture.cpp:57-80` — nearest / bilinear / bilinear-smoothstep over
   wrapped UVs; all bitmaps live in one packed atlas so a per-ray fetch is a
   single 2-D gather.
@@ -183,7 +183,7 @@ def _bitmap_eval(atlas: TextureAtlas, tid, u, v) -> Vec3:
 # --- simplex noise (fresh vectorized implementation) ---------------------------
 def _hash2(ix, iy):
     """Integer lattice hash -> gradient index (replaces the permutation table
-    with an arithmetic hash — table-free is gather-free on TPU)."""
+    with an arithmetic hash — table-free is gather-free)."""
     h = ix.astype(jnp.uint32) * jnp.uint32(0x8DA6B343) + iy.astype(jnp.uint32) * jnp.uint32(0xD8163841)
     h = h ^ (h >> jnp.uint32(13))
     h = h * jnp.uint32(0x9E3779B1)

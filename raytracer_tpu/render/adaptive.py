@@ -1,13 +1,13 @@
 """Adaptive rendering: per-block error estimation + block subdivision.
 
-TPU re-expression of the reference's adaptive pipeline (`Viewport.cpp:
+Re-expression of the reference's adaptive pipeline (`Viewport.cpp:
 644-732` UpdateBlocksList, `:552-581` per-block error): the film keeps a
 secondary every-2nd-pass accumulation buffer; every adaptation period the
 per-block relative error between the two estimates is measured, converged
 blocks are dropped from the active list, and noisy blocks are split in half
 so sampling concentrates where the variance is.
 
-TPU mapping: blocks live on the host (tiny metadata, like the reference's
+Device mapping: blocks live on the host (tiny metadata, like the reference's
 block list); each pass traces ONE padded wavefront of the active blocks'
 pixel ids via ``trace_pixels`` (the analogue of tiles-from-blocks,
 `Viewport.cpp:227-230`), scatter-adding into per-pixel sum/weight buffers.

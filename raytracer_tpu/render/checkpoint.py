@@ -4,7 +4,7 @@ The reference has no render checkpointing — only asset-level
 `BVH::SaveToFile/LoadFromFile` (`Core/BVH/BVH.h:87-88`) and EXR dumps of the
 accumulated film (`Bitmap::SaveEXR`).  Its pass-based accumulation is however
 *naturally* resumable: the full render state is {sum bitmap, secondary sum,
-passes finished, sampler seed} (SURVEY §5).  The TPU framework makes that a
+passes finished, sampler seed} (SURVEY §5).  This framework makes that a
 first-class capability: deterministic per-pass sample streams are keyed by
 (pixel, pass, dim), so saving the film pytree + pass counter + seed and
 reloading it continues the render bit-exactly — including across process

@@ -1,6 +1,6 @@
 """Film: HDR accumulation buffers.
 
-TPU re-expression of `Core/Rendering/Film.{h,cpp}`: a primary HDR sum image
+Re-expression of `Core/Rendering/Film.{h,cpp}`: a primary HDR sum image
 plus an optional secondary sum fed every 2nd pass, used by adaptive rendering
 to estimate per-block error (`Viewport.cpp:245,303`, `Film.cpp:31-39`).
 

@@ -4,7 +4,7 @@ The reference records every bounce of a clicked pixel's path — ray, hit,
 shading data, throughput, BSDF event, termination reason — hooked into the
 integrator (`PathTracerMIS.cpp:377-410`) and shown in the demo UI.
 
-TPU re-expression: instead of instrumenting the hot wavefront kernel (which
+Re-expression: instead of instrumenting the hot wavefront kernel (which
 would cost every ray), the same pixel's path is *re-traced* on demand as a
 single-lane wavefront with the identical deterministic sample stream (samples
 are pure functions of (pixel, pass, dim, seed), so the replay is exactly the

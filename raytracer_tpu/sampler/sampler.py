@@ -3,7 +3,7 @@
 The reference uses a stateful per-thread xoroshiro RNG plus a per-frame Halton
 vector with per-pixel scrambling (`Core/Sampling/HaltonSampler.*`,
 `Core/Sampling/GenericSampler.cpp:83-112`).  Stateful RNGs don't map to traced
-TPU programs, so the TPU-native design is *counter-based*: every sample is a
+SPMD programs, so this design is *counter-based*: every sample is a
 pure hash of (pixel_id, pass, dimension), giving bit-reproducible renders for a
 given seed regardless of device count or tiling — the property the reference
 gets from per-thread streams, but stronger.

@@ -4,7 +4,7 @@ Fresh implementation of the algorithm family used by the reference builder
 (`Core/BVH/BVHBuilder.cpp:117-276`): per node, leaf AABBs are kept sorted
 along all three axes; prefix/suffix box sweeps evaluate the exact SAH cost
 ``SA_L·N_L + SA_R·N_R`` at every split position; the cheapest axis/position
-wins.  Differences driven by the TPU traversal design (see
+wins.  Differences driven by the wavefront traversal design (see
 `types.BVHFlat`):
 
 - every leaf owns exactly ``LEAF_SIZE`` padded triangle slots (degenerate

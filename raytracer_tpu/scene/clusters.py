@@ -1,21 +1,18 @@
-"""Cluster acceleration structure — the TPU-native answer to BVH traversal.
+"""Cluster acceleration structure for the wavefront traversal engines.
 
-Per-lane pointer-chasing BVH walks are hostile to this hardware: XLA lowers
-gathers inside sequential loops poorly (measured: ~ms of fixed overhead per
-loop step on v5e, see ops/bvh_traverse.py), so an O(log n)-step walk with
-thousands of steps loses to a design with FEW steps of DENSE work:
+A per-lane pointer-chasing BVH walk runs as many lock-step loop steps as its
+deepest ray needs, each a handful of small gathers; this structure trades
+that for a few steps of DENSE work:
 
 - triangles are sorted by the Morton code of their centroid and cut into
   fixed-size clusters of ``K`` consecutive triangles (spatially coherent,
   LBVH-style);
 - phase 1 tests every ray against every cluster AABB **densely** — an
-  (n_rays, C) elementwise slab test, pure VPU work with zero gathers — and
-  `top_k`-selects the nearest ``kmax`` overlapped clusters per ray;
-- phase 2 iterates those ≤ kmax candidates (a static python loop), gathering
-  each cluster's (K, 9) triangle block in ONE row-gather and running a dense
-  vectorized Möller-Trumbore over the block.
+  (n_rays, C) elementwise slab test with zero gathers — and
+  `top_k`-selects the nearest overlapped clusters per ray;
+- phase 2 gathers each candidate cluster's (K, 9) triangle block in ONE
+  row-gather and runs a dense vectorized Möller-Trumbore over the block.
 
-This trades brute-force FLOPs (free on TPU) for loop steps (expensive).
 The reference's closest analogue is packet traversal (`Traversal_Packet.*`):
 test many rays against one node at a time; here it's all rays against all
 clusters at once.
@@ -40,43 +37,12 @@ class ClusterSet(NamedTuple):
     box_max_z: jnp.ndarray
     tri_block: jnp.ndarray  # (C, K*9) f32: K x (v0, e1, e2); degenerate pads
     tri_id: jnp.ndarray  # (C, K) int32 reordered-triangle ids, -1 = pad
-    # complete 8-ary tree over the Morton-ordered clusters (see
-    # build_cluster_tree): level i holds 8^(i+1) nodes; node j's children are
-    # nodes [8j, 8j+8) of level i+1; the LAST level's node j covers cluster j
-    # (padded with empty boxes past num_clusters).  Tuple of (Ni, 6) arrays
-    # [min.xyz, max.xyz]; empty => min > max, unhittable.
-    tree_levels: tuple = ()
-    # (C, 8, 128) f32: tri_block + bitcast tri_id packed into ONE full VPU
-    # tile per cluster, so the streaming kernel DMAs a cluster with a single
-    # tile-aligned copy (Mosaic rejects sub-tile DMA slices).  Flat layout:
-    # [0:K*9) = geometry, [K*9:K*10) = ids as f32 values, rest zero.
-    stream_block: jnp.ndarray = None
-    # --- super-clusters (8 Morton-consecutive clusters; wave2 engine) -------
-    # (Cs, 6) world AABB of each super-cluster [min.xyz, max.xyz]; empty
-    # (padding) supers have min > max
-    super_box: jnp.ndarray = None
-    # component-major layout for the vectorized MT kernel (wave2): tris on
-    # SUBLANES so each geometry component is an (ntri, 1) column the kernel
-    # broadcasts along ray lanes — no scalar VMEM reads in the hot loop.
-    # (Cs, 8*K, 16) f32, lanes [v0.xyz, e1.xyz, e2.xyz, tri_id, pad]; rows
-    # grouped by sub-cluster (rows [s*K, (s+1)*K) = sub s).  Shading
-    # attributes live ONLY in `tri_attr` (reconstructed post-trace), so the
-    # per-chunk DMA carries no dead lanes.
-    super_geom: jnp.ndarray = None
-    # (Cs, 8, 8) f32 sub-cluster AABBs, lanes [min.xyz, max.xyz, 0, 0] —
-    # subs on sublanes for the vectorized (8 subs x 128 rays) gate test
-    super_sbox: jnp.ndarray = None
     # (T, 16) f32 per-triangle shading attributes in INPUT tri-id order:
     # [n0.xyz, n1.xyz, n2.xyz, u0, v0, u1, v1, u2, v2, material_id, pad].
     # The winner's shading frame is ONE row-gather + barycentric lerp from
-    # this table (~1.5 ms per 262k-ray wavefront measured on v5e) — riding
-    # the 6 interpolated channels through the sort-join instead measured
-    # ~430 ms/pass at 512^2 (docs/perf_notes.md r4).
+    # this table after traversal, rather than riding 6 interpolated channels
+    # through the traversal's pair sorts.
     tri_attr: jnp.ndarray = None
-
-    @property
-    def num_supers(self) -> int:
-        return self.super_box.shape[0]
 
     @property
     def num_clusters(self) -> int:
@@ -114,9 +80,7 @@ def build_clusters(
     ``normals`` (T,3,3) / ``uvs`` (T,3,2) / ``material_ids`` (T,): optional
     per-vertex shading attributes, packed into the input-order ``tri_attr``
     table — the winner's interpolated shading frame is reconstructed
-    post-trace with ONE row-gather + barycentric lerp (riding attr channels
-    through the traversal sorts measured ~430 ms/pass at 512^2 and was
-    rejected, docs/perf_notes.md r4).
+    post-trace with ONE row-gather + barycentric lerp.
     """
     t = v0.shape[0]
     centroid = v0 + (e1 + e2) / 3.0
@@ -144,9 +108,6 @@ def build_clusters(
     vmin = np.where(valid, verts, np.inf).min(axis=(1, 2))
     vmax = np.where(valid, verts, -np.inf).max(axis=(1, 2))
 
-    super_box, super_geom, super_sbox = _pack_super_clusters(
-        blocks.reshape(c, k * 9), ids.reshape(c, k), vmin, vmax
-    )
     return ClusterSet(
         box_min_x=jnp.asarray(vmin[:, 0]), box_min_y=jnp.asarray(vmin[:, 1]),
         box_min_z=jnp.asarray(vmin[:, 2]),
@@ -154,13 +115,6 @@ def build_clusters(
         box_max_z=jnp.asarray(vmax[:, 2]),
         tri_block=jnp.asarray(blocks.reshape(c, k * 9)),
         tri_id=jnp.asarray(ids.reshape(c, k)),
-        tree_levels=_build_cluster_tree(vmin, vmax),
-        stream_block=_pack_stream_blocks(
-            blocks.reshape(c, k * 9), ids.reshape(c, k), vmin, vmax
-        ),
-        super_box=super_box,
-        super_geom=super_geom,
-        super_sbox=super_sbox,
         tri_attr=(lambda a: jnp.asarray(a) if a is not None else None)(
             _pack_tri_attr(t, normals, uvs, material_ids)
         ),
@@ -182,96 +136,3 @@ def _pack_tri_attr(t, normals, uvs, material_ids):
     if material_ids is not None:
         out[:t, 15] = np.asarray(material_ids, np.float32)
     return out
-
-
-SUB_PER_SUPER = 8
-
-
-def _pack_super_clusters(
-    tri_block: np.ndarray, tri_id: np.ndarray, vmin: np.ndarray,
-    vmax: np.ndarray,
-):
-    """Group 8 Morton-consecutive clusters into one super-cluster and pack
-    each super's geometry (8 sub geoms + ids + sub boxes) into whole
-    (8, 128) tiles for single-DMA streaming (wave2 engine).
-
-    Big supers keep the phase-1 candidate matrix small (a ray overlaps few
-    of them); the 8 sub-boxes let the MT kernel skip sub-clusters no ray in
-    the block touches, recovering most of the fine-grained culling."""
-    c, k9 = tri_block.shape
-    k = tri_id.shape[1]
-    cs = (c + SUB_PER_SUPER - 1) // SUB_PER_SUPER
-    cpad = cs * SUB_PER_SUPER - c
-    if cpad:
-        tri_block = np.concatenate([tri_block, np.zeros((cpad, k9), np.float32)])
-        tri_id = np.concatenate([tri_id, np.full((cpad, k), -1, np.int32)])
-        vmin = np.concatenate([vmin, np.full((cpad, 3), np.float32(3e38))])
-        vmax = np.concatenate([vmax, np.full((cpad, 3), np.float32(-3e38))])
-    smin = vmin.reshape(cs, SUB_PER_SUPER, 3).min(1)
-    smax = vmax.reshape(cs, SUB_PER_SUPER, 3).max(1)
-    super_box = np.concatenate([smin, smax], axis=1).astype(np.float32)
-    sb = np.concatenate(
-        [vmin.reshape(cs, SUB_PER_SUPER, 3), vmax.reshape(cs, SUB_PER_SUPER, 3)], axis=2
-    )  # (cs, 8, 6)
-
-    # component-major blocks: tris on sublanes, components on lanes
-    # [0:9] v0/e1/e2, [9] tri id, rest pad (16-lane rows: no dead attribute
-    # lanes riding the per-chunk DMA — shading attrs live in tri_attr)
-    geom = np.zeros((cs, SUB_PER_SUPER * k, 16), np.float32)
-    geom[:, :, :9] = tri_block.reshape(cs, SUB_PER_SUPER * k, 9)
-    geom[:, :, 9] = tri_id.reshape(cs, SUB_PER_SUPER * k).astype(np.float32)
-    sbox = np.zeros((cs, SUB_PER_SUPER, 8), np.float32)
-    sbox[:, :, :6] = sb
-    return jnp.asarray(super_box), jnp.asarray(geom), jnp.asarray(sbox)
-
-
-def _pack_stream_blocks(
-    tri_block: np.ndarray, tri_id: np.ndarray, vmin: np.ndarray, vmax: np.ndarray
-) -> jnp.ndarray:
-    """Pack (geometry, ids, cluster box) into whole (8, 128) tiles.
-
-    Flat layout: [0:9K) geometry, [9K:10K) ids as f32 values (exact to 2^24;
-    -1 = pad — scalar bitcast is unavailable in the kernel, float
-    compare/convert is), [10K:10K+6) cluster AABB min.xyz/max.xyz.
-    """
-    c, k9 = tri_block.shape
-    k = tri_id.shape[1]
-    flat_len = k9 + k + 6
-    tiles = (flat_len + 1023) // 1024
-    out = np.zeros((c, tiles * 1024), np.float32)
-    out[:, :k9] = tri_block
-    out[:, k9 : k9 + k] = tri_id.astype(np.float32)
-    out[:, k9 + k : k9 + k + 3] = vmin
-    out[:, k9 + k + 3 : k9 + k + 6] = vmax
-    return jnp.asarray(out.reshape(c, tiles * 8, 128))
-
-
-def _build_cluster_tree(vmin: np.ndarray, vmax: np.ndarray) -> tuple:
-    """Complete 8-ary box tree over the Morton-ordered cluster boxes.
-
-    Clusters are already Morton-sorted (consecutive ids are spatially
-    adjacent), so grouping 8 consecutive nodes per parent yields an
-    LBVH-style treelet with decent boxes at zero build cost.  The last level
-    is the clusters themselves padded to a power of 8 with EMPTY boxes
-    (min > max => no ray hits them).  Used by the per-block BFS candidate
-    pass (`ops/pallas_traverse.py`).
-    """
-    c = vmin.shape[0]
-    depth = 1
-    while 8**depth < c:
-        depth += 1
-    cap = 8**depth
-    lo = np.full((cap, 3), np.float32(3e38))
-    hi = np.full((cap, 3), np.float32(-3e38))
-    lo[:c] = vmin
-    hi[:c] = vmax
-    levels = [np.concatenate([lo, hi], axis=1).astype(np.float32)]
-    while levels[0].shape[0] > 8:
-        cur = levels[0]
-        n = cur.shape[0] // 8
-        grp = cur.reshape(n, 8, 6)
-        parent = np.concatenate(
-            [grp[:, :, 0:3].min(axis=1), grp[:, :, 3:6].max(axis=1)], axis=1
-        )
-        levels.insert(0, parent.astype(np.float32))
-    return tuple(jnp.asarray(l) for l in levels)

@@ -2,8 +2,8 @@
 
 The reference models the scene as an OOP graph (ISceneObject / IShape / ILight /
 BSDF virtual dispatch, `Core/Scene/SceneObject.h`, `Core/Shapes/Shape.h`,
-`Core/Scene/Light/Light.h`).  Virtual dispatch is hostile to TPU; the
-TPU-native re-expression flattens everything into typed SoA arrays with
+`Core/Scene/Light/Light.h`).  Virtual dispatch is hostile to SPMD wavefronts;
+the re-expression flattens everything into typed SoA arrays with
 integer-kind dispatch (branchless masked evaluation / `lax.switch`):
 
 - ``Primitives``: all *analytic* traceable objects (sphere / box / rect / csg
@@ -146,7 +146,7 @@ class BVHFlat(NamedTuple):
 
     The reference walks its BVH with a per-thread stack and near-child-first
     ordering (`Core/Traversal/Traversal_Single.h:16-96`).  A per-ray stack is
-    hostile to a TPU wavefront, so we pre-thread the tree instead: for each of
+    hostile to a lock-step wavefront, so we pre-thread the tree instead: for each of
     the 8 ray-direction octants the host computes *skip links* — ``hit`` (next
     node when the ray hits this node's box: the octant-near child) and ``miss``
     (next node in that octant's depth-first order when the box is missed or the
@@ -351,7 +351,7 @@ import jax as _ijax
 class Instances:
     """Instance table: per-instance rigid transform + linear velocity.
 
-    The TPU re-expression of the reference's two-level structure
+    The re-expression of the reference's two-level structure
     (`Core/Scene/Scene.cpp:128-145`: transform the ray into object space at
     each top-level leaf, `SceneObject.h:22-55` `GetTransform(time)`): rays
     are transformed per instance and traced through the SHARED object-space

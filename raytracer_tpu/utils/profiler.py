@@ -10,7 +10,7 @@ demo's profiler panel.  Here:
 - ``collect()`` returns {name: {count, total, avg, min, max}} like
   ``Profiler::Collect``;
 - ``device_trace(name)`` additionally opens a ``jax.profiler.TraceAnnotation``
-  so the region shows up in xprof/perfetto device traces — the TPU-native
+  so the region shows up in xprof/perfetto device traces — the
   replacement for the reference's IACA marks (`Core/Utils/iacaMarks.h`).
 
 Timed device work must be ``block_until_ready`` inside the scope to attribute

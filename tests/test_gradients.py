@@ -127,7 +127,7 @@ def _smooth_scene():
 
 class TestCameraGradients:
     """FD agreement for the camera axis of differentiable rendering
-    (VERDICT r1 item #1: origin AND one rotation row)."""
+    (origin AND one rotation row)."""
 
     PARAMS = RenderParams(max_depth=2, mis=True)
 

@@ -1,7 +1,7 @@
-"""IO tests: JSON scene loader over the reference's own TestScenes, OBJ
-parsing, EXR codec round-trip, texture kinds."""
+"""IO tests: JSON scene loader (hand-written fixtures reproducing the
+reference's TestScenes content, plus the reference checkout's own scenes
+when it is present), OBJ parsing, EXR codec round-trip, texture kinds."""
 
-import glob
 import os
 import warnings
 
@@ -15,29 +15,36 @@ from raytracer_tpu.io.scene_loader import SceneLoadError, load_scene
 from raytracer_tpu.math.vec import Vec3
 from raytracer_tpu.ops.textures import AtlasBuilder, sample_texture_many
 
-REF_SCENES = "/root/reference/Data/TestScenes"
+REF_DATA = "/root/reference/Data"
+REF_SCENES = f"{REF_DATA}/TestScenes"
+FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 
-# scenes that can't load in this environment (missing OBJ assets) or use
-# features not implemented yet (csg)
-SKIP = {"glass_bunny.json", "sponza.json", "shapes_test.json"}
+# the reference's TestScenes that load without missing OBJ assets or
+# unimplemented features (csg): glass_bunny, sponza and shapes_test are out
+REF_SCENE_NAMES = (
+    "area_light_test", "background_light_test", "bitmap_texture_test",
+    "cornell_box", "cornell_box_obstructed", "directional_light_test",
+    "dispersion_test", "dof_test", "furnace_test", "furnace_test_2",
+    "glossy_refraction_test", "material_env_test", "material_perf_test",
+    "materials_test", "mis_test", "sds", "small_light_test",
+    "sphere_light_test", "texture_test",
+)
 
 
 class TestSceneLoader:
-    @pytest.mark.parametrize(
-        "path",
-        [p for p in sorted(glob.glob(f"{REF_SCENES}/*.json"))
-         if os.path.basename(p) not in SKIP],
-        ids=os.path.basename,
-    )
-    def test_reference_scene_loads(self, path):
+    @pytest.mark.parametrize("name", REF_SCENE_NAMES)
+    def test_reference_scene_loads(self, name):
+        path = f"{REF_SCENES}/{name}.json"
+        if not os.path.exists(path):
+            pytest.skip(f"reference checkout absent: {path}")
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
-            scene, meta, cam = load_scene(path, data_path="/root/reference/Data")
+            scene, meta, cam = load_scene(path, data_path=REF_DATA)
         assert scene.materials.count >= 1
         assert scene.prims.count >= 1
 
     def test_cornell_box_content(self):
-        scene, meta, cam = load_scene(f"{REF_SCENES}/cornell_box.json")
+        scene, meta, cam = load_scene(os.path.join(FIXTURES, "cornell_box.json"))
         # 9 objects + 1 area-light rect = 10 prims; 8 declared materials
         assert scene.prims.count == 10
         assert meta.n_lights == 1
@@ -53,7 +60,7 @@ class TestSceneLoader:
 
     def test_legacy_edge_area_light(self):
         """position/edge0/edge1 area lights (small_light_test.json)."""
-        scene, meta, cam = load_scene(f"{REF_SCENES}/small_light_test.json")
+        scene, meta, cam = load_scene(os.path.join(FIXTURES, "small_light_test.json"))
         from raytracer_tpu.scene.types import LIGHT_AREA
 
         assert meta.light_kinds[0] == LIGHT_AREA

@@ -3,7 +3,7 @@ the single-chip paths exactly.
 
 The reference's only concurrency boundary is a thread pool over image tiles
 whose per-thread results merge deterministically (`Viewport.cpp:227-287`);
-the TPU analogue (SURVEY §2.9 P3) shards the pixel-row axis over a device
+the device analogue (SURVEY §2.9 P3) shards the pixel-row axis over a device
 mesh.  Because every sample is a pure hash of the GLOBAL pixel id + pass +
 seed, any row partitioning must produce bit-identical radiance — these tests
 pin that claim (conftest.py provides the 8-virtual-device CPU mesh).

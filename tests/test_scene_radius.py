@@ -1,4 +1,4 @@
-"""Scene-radius derivation (VERDICT r3 #8): background/directional photon
+"""Scene-radius derivation: background/directional photon
 emission must cover the REAL scene bounds, not the reference's hardcoded 30
 (`BackgroundLight.cpp:16`, its own TODO).
 

@@ -4,7 +4,7 @@ consistency via Monte-Carlo integration, and sample/evaluate agreement.
 Model: the reference validates shading end-to-end through furnace scenes
 (`Tests/RaytracingTests.cpp:317-523`); here we additionally unit-test the
 lobes directly, which the reference does not — stronger coverage at the layer
-where TPU-specific (branchless/masked) bugs would hide."""
+where wavefront-specific (branchless/masked) bugs would hide."""
 
 import numpy as np
 import jax.numpy as jnp

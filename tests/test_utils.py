@@ -2,7 +2,7 @@
 
 Mirrors the reference's Utils coverage (SURVEY §2.7): scoped timers
 (`Core/Utils/Profiler.h:25-102`), asset persistence (`Core/BVH/BVH.h:87-88`),
-plus the render-state resumability SURVEY §5 requires of the TPU build.
+plus the render-state resumability SURVEY §5 requires.
 """
 
 import numpy as np

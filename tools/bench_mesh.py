@@ -11,7 +11,8 @@ traversal_bench.py:26-29 itself flags as unrepresentative) and writes:
   `raytracer_tpu.io.scene_loader` — geometry/material/light/camera parity by
   construction.
 
-Everything is keyed by triangle count; files land in /tmp/raytracer_bench/.
+Everything is keyed by triangle count; files land in the checkout's
+git-ignored ``build/scenes/``.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ import os
 
 import numpy as np
 
-BENCH_DIR = "/tmp/raytracer_bench"
+BENCH_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build", "scenes"
+)
 SEED = 7
 SPREAD = 4.0
 

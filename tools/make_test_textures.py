@@ -9,8 +9,12 @@ construction, regenerated on demand (never committed binary).
 
 import os
 
+import sys
+
 import numpy as np
-from PIL import Image
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+from raytracer_tpu.io.bitmap import write_bmp  # noqa: E402
 
 
 def default_bmp(path: str, size: int = 64):
@@ -21,7 +25,7 @@ def default_bmp(path: str, size: int = 64):
     g = (x / size) * 255
     b = (y / size) * 255
     img = np.stack([r, g, b], -1).astype(np.uint8)
-    Image.fromarray(img).save(path)
+    write_bmp(path, img)
     return path
 
 
@@ -30,9 +34,6 @@ def env_exr(path: str, w: int = 256, h: int = 128):
     ground — stands in for the unshipped 4K park EXR that
     material_env_test.json references."""
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    import sys
-
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
     from raytracer_tpu.io.exr import write_exr
 
     v = (np.arange(h) + 0.5) / h  # 0 = up
@@ -66,6 +67,4 @@ def ensure(data_dir: str = "/tmp/refdata"):
 
 
 if __name__ == "__main__":
-    import sys
-
     print(ensure(sys.argv[1] if len(sys.argv) > 1 else "/tmp/refdata"))

@@ -3,7 +3,7 @@
 The reference ships google-benchmark micro-benches for its kernels
 (`Benchmark/GeometryBenchmark.cpp`, `RandomBenchmark.cpp`,
 `TranscendentalBenchmark.cpp`, `VectorBenchmark.cpp`, `HashGridBenchmark.cpp`
-— SURVEY §6).  This is the TPU-native equivalent: each hot kernel is jitted,
+— SURVEY §6).  This is the JAX equivalent: each hot kernel is jitted,
 warmed, then timed over a large wavefront; results print as JSON lines.
 
 Usage: python tools/microbench.py [--cpu] [--n 1048576]

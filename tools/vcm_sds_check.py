@@ -1,6 +1,5 @@
 """Render sds.json with OUR VCM at the golden's pass count (384) and compare
-against the reference VCM golden (tests/goldens/sds_vcm.exr) — VERDICT r3
-next-step #6: promote the VCM image-level parity test out of xfail if the
+against the reference VCM golden (tests/goldens/sds_vcm.exr): promote the VCM image-level parity test out of xfail if the
 divergence was a pass-count (merge-radius schedule) artifact.
 """
 import sys, warnings
